@@ -117,7 +117,8 @@ class BlockCodec:
             span=self.span)
 
     def decode_batch_raw(self, comp: jnp.ndarray, nbytes: jnp.ndarray):
-        """Metadata-free batch decode (scan decoder; reference semantics)."""
+        """Metadata-free batch decode (the bit-parallel raw decoder,
+        ops.bitpar; reference semantics)."""
         if self._dec_raw is None:
             self._dec_raw = dec_ops.make_decoder(self.cap, self.block)
         return self._dec_raw(comp, nbytes)

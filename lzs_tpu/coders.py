@@ -10,7 +10,7 @@ python implementation (verified against the golden vector in tests).
 
 The match search runs on the accelerator (ops.sortmatch) parameterized by
 the coder-derived window and length cap, so generalized profiles get the
-same TPU fast path as the standard one.
+same device fast path as the standard one.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ from ..coders import (BiasedOffsetCoder, FixedOffsetCoder, GeneralCodec,
                       LENGTH_CODER_PRESETS, StandardOffsetCoder)
 
 PROFILES = {
-    # the ANSI X3.241 / RFC 1967 wire format (TPU kernel fast path)
+    # the ANSI X3.241 / RFC 1967 wire format (device fast path)
     "standard": GeneralCodec(StandardOffsetCoder(7, 11),
                              LENGTH_CODER_PRESETS["standard"]),
     # extended-reach offsets (biased long range)

@@ -1,149 +1,76 @@
-"""MSB-first bit packing with prefix-summed offsets — scatter-free.
+"""MSB-first bit packing with prefix-summed offsets.
 
 Every position carries one right-aligned (value, width <= 25) unit. Bit
-offsets are the exclusive prefix sum of widths; each unit is placed into a
-64-bit big-endian window anchored at its start *word*. Because widths are
-<= 25 < 32, the anchor word index is nondecreasing with steps in {0, 1}:
-consecutive units either share a word or move to the next one, and no word
-is skipped. That turns the word assembly into
-
-  1. a segmented OR (suffix-OR within equal-anchor-word groups, log-step
-     shifts — units never share bits, so OR == the reference's bit-queue
-     accumulation, lzs-compression.c:303-313), then
-  2. one compaction sort: group heads appear in anchor-word order, so
-     sorting heads to the front yields the dense word array directly.
-
-This costs one small sort instead of a scatter — on TPU, XLA scatters
-serialize (~0.1 G elem/s measured) while sorts stream at ~1 G elem/s.
+offsets are the exclusive prefix sum of widths; each unit splits into at
+most two pieces, the bits that land in its anchor word (offset >> 5) and
+the spill into the next word. Units never share bits, so adding the
+pieces into the words equals the reference's bit-queue accumulation
+(lzs-compression.c:303-313): one cumsum and one scatter-add.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-
-_BIG = 0x7FFFFFFF  # plain int: no backend init at import time
-
-
-def _seg_suffix_or(key: jnp.ndarray, val: jnp.ndarray) -> jnp.ndarray:
-    """Suffix-OR of ``val`` within runs of equal ``key`` (1-D arrays).
-
-    Returns acc with acc[i] = OR of val[j] for all j >= i in i's run. The
-    run head then carries the whole group's OR.
-    """
-    m = key.shape[0]
-    acc = val
-    sh = 1
-    while sh < m:
-        shifted = jnp.concatenate([acc[sh:], jnp.zeros(sh, acc.dtype)])
-        same = jnp.concatenate([key[sh:] == key[:-sh],
-                                jnp.zeros(sh, jnp.bool_)])
-        acc = jnp.where(same, acc | shifted, acc)
-        sh *= 2
-    return acc
-
-
-def pack_bits(value: jnp.ndarray, width: jnp.ndarray, cap_bytes: int,
-              end_marker: tuple | None = None):
-    """Pack per-position bit fields into a byte stream.
-
-    Args:
-      value: int32[M] right-aligned bit fields (width <= 25 bits).
-      width: int32[M] field widths (0..25). Zero-width entries are ignored.
-      cap_bytes: static output capacity in bytes; must be a multiple of 4
-        with >= 8 bytes of slack past the worst-case stream.
-
-    Returns:
-      (bytes: uint8[cap_bytes], total_bits: int32 scalar,
-       offs: int32[M] exclusive bit offsets)
-    """
-    out, total_bits, offs = pack_bits_batch(value[None], width[None],
-                                            cap_bytes,
-                                            end_marker=end_marker)
-    return out[0], total_bits[0], offs[0]
 
 
 def pack_bits_batch(value: jnp.ndarray, width: jnp.ndarray,
                     cap_bytes: int, end_marker: tuple | None = None):
-    """Batched pack_bits: int32[B, M] value/width -> uint8[B, cap_bytes].
+    """Pack per-position bit fields into byte streams, one per row.
 
-    ``end_marker=(value, bits)`` splices one trailing unit into the
-    packed words arithmetically instead of as an M+1-th array column —
-    a 32769-wide sort pads to the next power of two and costs 3.4x a
-    32768-wide one on v5e.
+    Args:
+      value: int32[B, M] right-aligned bit fields (width <= 25 bits).
+      width: int32[B, M] field widths (0..25); zero-width entries emit
+        nothing.
+      cap_bytes: static output capacity in bytes; a multiple of 4 with
+        >= 8 bytes of slack past the worst-case stream.
+      end_marker: ``(value, bits)`` of one trailing unit appended after
+        the last real one (not counted in ``offs``).
 
-    Stages: (1) compact real units (width > 0) to the row front with ONE
-    packed 2-operand sort — offsets are the cumsum of compacted widths,
-    identical to the uncompacted cumsum since zero-width units add 0;
-    (2) anchor-word grouping: after compaction a 32-bit word hosts at
-    most 10 units (the narrowest is a 4-bit nibble), so the segmented
-    suffix-OR needs 4 log-step rounds instead of 15; (3) one 3-operand
-    compaction sort delivers the per-word heads to dense word slots.
-    Every sort is row-split to stay VMEM-resident (pcand._row_sort).
+    Returns:
+      (bytes: uint8[B, cap_bytes], total_bits: int32[B],
+       offs: int32[B, M] exclusive bit offsets)
     """
-    from .pcand import _row_sort
-    from . import ppack
-
     assert cap_bytes % 4 == 0
     cap_words = cap_bytes // 4
-    b, m = value.shape
-    assert m <= (1 << 16) and cap_words <= (1 << 14)
-    rows = max(8, ((16 << 20) // (4 * m)) & ~7)
-
-    # one Pallas pass: offset cumsum, 64-bit window build, segmented
-    # group OR, spill merge into the next head, head-compaction keys
-    offs, key_a, key_b, lp1, lp2 = ppack.pack_phase(
-        value.astype(jnp.int32), width.astype(jnp.int32))
-    total_bits = offs[:, -1] + width[:, -1]
-
-    # dense words via two parallel packed 1-op sorts (heads carry the
-    # unique (w0) prefix so both halves land in the same order; non-head
-    # entries sort past them and are masked off by their MISS bit)
-    ka, kb = key_a, key_b
-    if m < cap_words:                     # ensure >= cap_words entries
-        pad = jnp.full((b, cap_words - m), 0x7FFFFFFF, jnp.int32)
-        ka = jnp.concatenate([ka, pad], axis=1)
-        kb = jnp.concatenate([kb, pad], axis=1)
-    rows2 = max(8, ((16 << 20) // (4 * ka.shape[1])) & ~7)
-    sa = _row_sort(ka, rows2)[:, :cap_words]
-    sb = _row_sort(kb, rows2)[:, :cap_words]
-    ha = jnp.where(sa < ppack._MISS, sa & 0xFFFF, 0)
-    hb = jnp.where(sb < ppack._MISS, sb & 0xFFFF, 0)
-    words = (ha << 16) | hb
-
-    # the final head's group spill has no successor head to carry it:
-    # recover it with a max over the packed per-head spill columns
-    m1 = jnp.max(lp1, axis=1)
-    m2 = jnp.max(lp2, axis=1)
-    spill = jnp.where(m1 >= 0, ((m1 & 0xFFFF) << 16) | (m2 & 0xFFFF), 0)
-    wi = jnp.arange(cap_words, dtype=jnp.int32)[None, :]
-    last_w0 = jnp.where(m1 >= 0, m1 >> 16, -2)
-    words = words | jnp.where(wi == (last_w0 + 1)[:, None],
-                              spill[:, None], 0)
-
+    b = value.shape[0]
+    value = value.astype(jnp.int32)
+    width = width.astype(jnp.int32)
+    incl = jnp.cumsum(width, axis=1)
+    offs = incl - width
+    total_bits = incl[:, -1]
     if end_marker is not None:
         emv, emb = end_marker
-        emv = jnp.uint32(emv)
-        w0m = (total_bits >> 5)[:, None]
-        endm = ((total_bits & 31) + emb)[:, None].astype(jnp.uint32)
-        hi_m = jnp.where(endm <= 32,
-                         emv << jnp.clip(32 - endm, 0, 31),
-                         emv >> jnp.clip(endm - 32, 0, 31)).astype(
-                             jnp.int32)
-        lo_m = jnp.where(endm <= 32, jnp.uint32(0),
-                         emv << jnp.clip(64 - endm, 0, 31)).astype(
-                             jnp.int32)
-        words = words | jnp.where(wi == w0m, hi_m, 0)
-        words = words | jnp.where(wi == w0m + 1, lo_m, 0)
+        value = jnp.concatenate(
+            [value, jnp.full((b, 1), emv, jnp.int32)], axis=1)
+        width = jnp.concatenate(
+            [width, jnp.full((b, 1), emb, jnp.int32)], axis=1)
+        allo = jnp.concatenate([offs, total_bits[:, None]], axis=1)
         total_bits = total_bits + emb
-
-    nwords = ((total_bits + 31) >> 5)[:, None]
-    words = jnp.where(wi < nwords, words, 0)
+    else:
+        allo = offs
+    # each unit's bits in its anchor word (hi) and the next one (lo)
+    v = value.astype(jnp.uint32)
+    end = (allo & 31) + width
+    live = width > 0
+    hi = jnp.where(end <= 32,
+                   v << jnp.clip(32 - end, 0, 31).astype(jnp.uint32),
+                   v >> jnp.clip(end - 32, 0, 31).astype(jnp.uint32))
+    hi = jnp.where(live, hi, jnp.uint32(0))
+    lo = jnp.where(live & (end > 32),
+                   v << jnp.clip(64 - end, 0, 31).astype(jnp.uint32),
+                   jnp.uint32(0))
+    w0 = allo >> 5
+    rows = jnp.arange(b, dtype=jnp.int32)[:, None]
+    words = jnp.zeros((b, cap_words), jnp.uint32)
+    words = words.at[rows, jnp.where(hi != 0, w0, cap_words)].add(
+        hi, mode="drop")
+    words = words.at[rows, jnp.where(lo != 0, w0 + 1, cap_words)].add(
+        lo, mode="drop")
     return words_to_bytes(words), total_bits, offs
 
 
 def words_to_bytes(words: jnp.ndarray) -> jnp.ndarray:
-    """Big-endian int32 word array -> uint8 byte array (elementwise)."""
+    """Big-endian 32-bit word array -> uint8 byte array (elementwise)."""
     w = words.astype(jnp.uint32)
     b = jnp.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
                    (w >> 8) & 0xFF, w & 0xFF], axis=-1)

@@ -17,13 +17,12 @@ removes the serial parse entirely:
   3. The successor function succ(b) = bit offset of the next token head
      if a head starts at bit b is then known for every bit. The true
      token chain is the orbit of bit 0 under succ — exactly the
-     token-walk problem the encoder already solves, so the same Pallas
-     pointer-doubling kernel (ops.pwalk) marks all real heads.
+     token-walk problem the encoder already solves, so the same
+     pointer-doubling walk (tokenize.token_starts) marks all real heads.
   4. Each real head becomes one packed record (opos << 13 | is_copy << 11
      | payload). Two heads are always >= 9 bits apart, so slot b // 9 is
      injective over heads: a reshape + max compacts records densely
-     enough for the record-walk expansion kernel (ops.pexpand) — no
-     sort, no scatter.
+     enough for the copy expansion (ops.expand) — no sort, no scatter.
 
 End markers (offset 0, lzs-decompression.c:255-261) terminate the chain
 (single-stream) or jump to the next byte boundary (multi-stream,
@@ -60,11 +59,12 @@ def _seg_reverse_sum(a: jnp.ndarray, g: jnp.ndarray):
     combine pass. The affine maps f_t(y) = a_t + g_t * y compose
     associatively, which is what makes the per-block summary exact.
 
-    jax.lax.associative_scan is NOT used: on the TPU backend it returns
-    wrong values for this operator at batch >= 32 on (B, 73984, 4)-sized
-    operands (deterministically, both scan directions, while batch 1-8
-    and the CPU backend agree with the host model) — pinned by
-    tests/test_ops.py::test_bitpar_matches_scan_engine at batch 32.
+    jax.lax.associative_scan is not used: on an earlier backend it
+    returned wrong values for this operator at batch >= 32 on
+    (B, 73984, 4)-sized operands, which
+    tests/test_ops.py::test_bitpar_matches_scan_engine pins at batch 32.
+    Whether the library scan is correct and faster on the GPU is open
+    (ROADMAP D3).
     """
     n = a.shape[-1]
     c = _SEG_C
@@ -143,13 +143,10 @@ def decode_batch_bits(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
       (out: uint8[B, out_cap], out_len: int32[B], end_markers: int32[B])
       — the same contract as ops.decode.decode_batch.
     """
-    from . import pexpand, pext, tokenize
+    from . import expand, tokenize
 
     assert out_cap <= MAX_OUT_CAP, "record packing bounds out_cap to 2^18"
-    b, c0 = comp.shape
-    # multiples of 1024 bytes make the walk's tile count divisible by 64,
-    # so pwalk runs at its widest row-block (fewest kernel programs)
-    cpad = max(-(-c0 // 1024) * 1024, 1024)
+    b, cpad = comp.shape
     nbits = cpad * 8
     inbits = (inbytes.astype(jnp.int32) * 8)[:, None]
     w = _bit_windows(comp, cpad)
@@ -167,9 +164,6 @@ def decode_batch_bits(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
     a_len = jnp.where(valid, nib, 0)
     q4 = nbits // 4
     # naturally bounded by 15 * nbits / 4 < 2^21: no overflow anywhere.
-    # (A Pallas roll-scan variant measured 12 ms SLOWER here — the
-    # blocked XLA form fuses into the surrounding per-bit elementwise
-    # graph, which the pallas_call barrier would force to materialize.)
     ext_pack = _seg_reverse_sum(
         a_len.reshape(b, q4, 4).transpose(0, 2, 1),
         g.reshape(b, q4, 4).transpose(0, 2, 1)
@@ -224,8 +218,7 @@ def decode_batch_bits(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
     # is injective over heads, so one packed per-bit value max-reduced
     # into bit // 9 slots carries everything, and the rest of the
     # pipeline (offset cumsum, record assembly, marker count) runs at
-    # slot width — 9x narrower than the per-bit arrays the old form
-    # re-traversed five times (~10 ms at the bench batch) ---
+    # slot width, 9x narrower than the per-bit arrays ---
     live = heads & head_ok & (is_lit | is_match | is_marker)
     payload = jnp.where(is_lit, lit, jnp.where(short_off, off7, off11))
     # packed = length << 12 | is_copy << 11 | payload (length <= 2^18
@@ -236,25 +229,22 @@ def decode_batch_bits(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
                        | (is_match.astype(jnp.int32) << 11) | payload,
                        -1)
     s9 = -(-nbits // 9)
-    spad = max(-(-s9 // 128) * 128, pexpand._RW)
     packed = jnp.concatenate(
-        [packed, jnp.full((b, spad * 9 - nbits), -1, jnp.int32)], axis=1)
-    slot = jnp.max(packed.reshape(b, spad, 9), axis=2)
+        [packed, jnp.full((b, s9 * 9 - nbits), -1, jnp.int32)], axis=1)
+    slot = jnp.max(packed.reshape(b, s9, 9), axis=2)
 
     valid_s = slot >= 0
     len_s = jnp.where(valid_s, slot >> 12, 0)
-    opos = pext.cumsum_rows_wide(len_s, tile=spad) - len_s
+    opos = jnp.cumsum(len_s, axis=1) - len_s
     total = opos[:, -1] + len_s[:, -1]
     out_len = jnp.minimum(total, out_cap)
     markers = jnp.sum((valid_s & (slot == 0)
                        & (opos < out_cap)).astype(jnp.int32), axis=1)
     opc = jnp.minimum(opos, out_cap)
     # record = opos << 13 | is_copy << 11 | payload — exactly the slot's
-    # low 12 bits, and a marker's zero low bits leave the zero-length
-    # pseudo-record that keeps record gaps bounded for the expansion
-    # walk even across many empty streams
+    # low 12 bits; a marker leaves a zero-length literal-0 pseudo-record
+    # that the next record at the same output position outranks
     rec = jnp.where(valid_s & (opos < out_cap),
                     (opc << 13) | (slot & 0xFFF), -1)
-    fill = pext.cummax_rows(rec)
-    out, _ = pexpand.expand_records(fill, out_len, out_cap)
+    out, _ = expand.expand_records(rec, out_len, out_cap)
     return out.astype(jnp.uint8), out_len, markers

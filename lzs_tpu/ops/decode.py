@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from .. import spec
+from . import expand
 from .bitpack import read_window
 
 
@@ -119,6 +120,17 @@ def _parse_scan(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
     return units + (out_len, markers)
 
 
+def pad_input(comp: jnp.ndarray) -> jnp.ndarray:
+    """Zero-pad the input width to a 1 KiB multiple, so that ragged host
+    calls (the CLI, truncation sweeps) reuse compiled programs."""
+    b, c0 = comp.shape
+    cpad = max(-(-c0 // 1024) * 1024, 1024)
+    if cpad == c0:
+        return comp
+    return jnp.concatenate([comp, jnp.zeros((b, cpad - c0), comp.dtype)],
+                           axis=1)
+
+
 def decode_batch(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
                  out_cap: int, max_units: int | None = None,
                  multi_stream: bool = False, engine: str = "bits"):
@@ -130,30 +142,22 @@ def decode_batch(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
     lax.scan mirror of the reference state machine, kept as the
     executable-semantics oracle (both are pinned equal in tests).
     """
-    # bucket the input capacity to 1 KiB multiples so ragged host calls
-    # (e.g. the CLI, truncation sweeps) reuse compiled programs
-    b, c0 = comp.shape
-    cpad = max(-(-c0 // 1024) * 1024, 1024)
-    if cpad != c0:
-        comp = jnp.concatenate(
-            [comp, jnp.zeros((b, cpad - c0), comp.dtype)], axis=1)
-    return _decode_batch(comp, inbytes, out_cap=out_cap,
-                         max_units=max_units, multi_stream=multi_stream,
-                         engine=engine)
+    from . import bitpar
 
-
-@functools.partial(jax.jit,
-                   static_argnames=("out_cap", "max_units", "multi_stream",
-                                    "engine"))
-def _decode_batch(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
-                  out_cap: int, max_units: int | None = None,
-                  multi_stream: bool = False, engine: str = "bits"):
-    from . import bitpar, decode2, pexpand
-
+    comp = pad_input(comp)
     if engine == "bits" and out_cap <= bitpar.MAX_OUT_CAP:
         return bitpar.decode_batch_bits(comp, inbytes, out_cap=out_cap,
                                         multi_stream=multi_stream)
+    return _decode_batch_scan(comp, inbytes, out_cap=out_cap,
+                              max_units=max_units,
+                              multi_stream=multi_stream)
 
+
+@functools.partial(jax.jit,
+                   static_argnames=("out_cap", "max_units", "multi_stream"))
+def _decode_batch_scan(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
+                       out_cap: int, max_units: int | None = None,
+                       multi_stream: bool = False):
     kind, val, off, length, opos, out_len, markers = jax.vmap(
         lambda c, m: _parse_scan(c, m, out_cap=out_cap,
                                  max_units=max_units,
@@ -162,8 +166,7 @@ def _decode_batch(comp: jnp.ndarray, inbytes: jnp.ndarray, *,
     pay = jnp.where(kind == 1, val, off)
     rec = jnp.where(length > 0,
                     (opos << 13) | (is_copy << 11) | pay, -1)
-    fill = decode2._filled_records(rec[:, :, None])
-    out, _ = pexpand.expand_records(fill, out_len, out_cap)
+    out, _ = expand.expand_records(rec, out_len, out_cap)
     return out.astype(jnp.uint8), out_len, markers
 
 

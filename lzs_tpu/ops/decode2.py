@@ -20,16 +20,12 @@ nibbles (<= 24 bits), mirroring the incremental decoder's states
 
 Each parsed token becomes ONE packed int32 record (opos<<13 | is_copy<<11
 | payload); zero-length tokens are suppressed so records have strictly
-increasing output positions in lane-major order. A running max fills the
-empty slots (the stream stays nondecreasing in opos) and the Pallas
-record-walk expansion kernel (pexpand.expand_records) turns records
-directly into bytes: a carried slot pointer plus per-byte binary search
-over a VMEM record window replaces any per-byte ownership sort, and the
-LZ77 copies resolve against a carried circular window with in-chunk
-pointer doubling.
+increasing output positions in lane-major order, the form the copy
+expansion (ops.expand) turns into bytes by pointer doubling.
 
-Raw streams without sync metadata use ops.decode (the scan decoder, which
-also implements the reference's corrupt-input semantics).
+Raw streams without sync metadata use ops.decode (the bit-parallel
+decoder, or the bit-serial scan that mirrors the reference's state
+machine, corrupt-input semantics included).
 """
 
 from __future__ import annotations
@@ -41,10 +37,9 @@ import jax.numpy as jnp
 
 from .. import spec
 from . import encode as enc
+from . import expand
 
 
-_CHUNK = 256          # expansion chunk (bytes per scan step)
-_WIN = 2048           # carried window capacity (>= WINDOW_SIZE)
 _SUBSTEPS = 4         # tokens parseable per fed 32-bit word (see docstring)
 _BIG = 0x3FFFFFFF    # plain int: jnp scalars become captured jaxpr consts
 
@@ -140,7 +135,7 @@ def _parse_full(comp: jnp.ndarray, sync_bit: jnp.ndarray,
 
     Returns (recs, out_final): recs int32[(wpl + 2) * _SUBSTEPS, L]
     packed token records in step order (lane-major transpose gives
-    records sorted by output position): opos << 12 | is_copy << 11 |
+    records sorted by output position): opos << 13 | is_copy << 11 |
     payload, or -1 for empty slots; out_final int32[L] is each lane's
     final output position (an integrity signal: it must equal the next
     lane's starting offset).
@@ -186,32 +181,10 @@ def _parse(comp: jnp.ndarray, sync_bit: jnp.ndarray, sync_out: jnp.ndarray,
     return _parse_full(comp, sync_bit, sync_out, span)[0]
 
 
-def _filled_records(recs: jnp.ndarray) -> jnp.ndarray:
-    """Lane-major record stream, cummax-filled for the record walk.
-
-    recs: int32[B, S, L] packed parse records (-1 empty). Records have
-    strictly increasing opos in lane-major order, so a running max fills
-    every empty slot with the previous record and the result is
-    nondecreasing — the form pexpand.expand_records walks. Padded to a
-    multiple of 128 slots (>= pexpand._RW).
-    """
-    from . import pexpand, pext
-
-    b = recs.shape[0]
-    flat = jnp.swapaxes(recs, 1, 2).reshape(b, -1)
-    s = flat.shape[1]
-    want = max((s + 127) & ~127, pexpand._RW)
-    if want != s:
-        flat = jnp.concatenate(
-            [flat, jnp.full((b, want - s), -1, jnp.int32)], axis=1)
-    return pext.cummax_rows(jnp.where(flat >= 0, flat, -1))
-
-
-@functools.partial(jax.jit, static_argnames=("out_cap", "span", "chunk"))
+@functools.partial(jax.jit, static_argnames=("out_cap", "span"))
 def decode_block_sync(comp: jnp.ndarray, sync_bit: jnp.ndarray,
                       sync_out: jnp.ndarray, n: jnp.ndarray, *,
-                      out_cap: int, span: int = enc.SYNC_SPAN,
-                      chunk: int = _CHUNK):
+                      out_cap: int, span: int = enc.SYNC_SPAN):
     """Decode one container block with sync metadata.
 
     Args:
@@ -223,16 +196,14 @@ def decode_block_sync(comp: jnp.ndarray, sync_bit: jnp.ndarray,
     Returns uint8[out_cap] (bytes past ``n`` are zero).
     """
     out, _ = decode_batch_sync(comp[None], sync_bit[None], sync_out[None],
-                               n[None], out_cap=out_cap, span=span,
-                               chunk=chunk)
+                               n[None], out_cap=out_cap, span=span)
     return out[0]
 
 
-@functools.partial(jax.jit, static_argnames=("out_cap", "span", "chunk"))
+@functools.partial(jax.jit, static_argnames=("out_cap", "span"))
 def decode_batch_sync(comp: jnp.ndarray, sync_bit: jnp.ndarray,
                       sync_out: jnp.ndarray, n: jnp.ndarray, *,
-                      out_cap: int, span: int = enc.SYNC_SPAN,
-                      chunk: int = _CHUNK):
+                      out_cap: int, span: int = enc.SYNC_SPAN):
     """Batched sync-parallel decode with per-block status words.
 
     Args:
@@ -247,14 +218,12 @@ def decode_batch_sync(comp: jnp.ndarray, sync_bit: jnp.ndarray,
              next lane's sync record (corrupt stream or records)
     0 means the block decoded cleanly.
     """
-    del chunk
-    from . import pexpand
-
     recs, out_final = jax.vmap(
         lambda c, sb, so: _parse_full(c, sb, so, span))(
         comp.astype(jnp.int32), sync_bit, sync_out)
-    fill = _filled_records(recs)
-    out, status = pexpand.expand_records(fill, n, out_cap)
+    # lane-major order: records sorted by output position
+    lane_major = jnp.swapaxes(recs, 1, 2).reshape(recs.shape[0], -1)
+    out, status = expand.expand_records(lane_major, n, out_cap)
 
     # lane-boundary integrity: lane l parses bits [sync_bit[l],
     # sync_bit[l+1]) and must land exactly on lane l+1's output offset;

@@ -37,6 +37,7 @@ SYNC_SPAN = 2048
 MAX_STEP_BITS = 24
 #: narrowest parse step in bits (a literal: flag + 8)
 MIN_STEP_BITS = 9
+_BIG = 0x3FFFFFFF    # plain int: jnp scalars become captured jaxpr consts
 
 
 def cap_bytes(block: int) -> int:
@@ -82,11 +83,8 @@ def _pipeline_batch(x, n, window, cap, chunk, backend, policy="greedy"):
         full = jnp.where(defer, 1, full)
     else:
         assert policy == "greedy", policy
-    value, width, starts, length = tokenize.emission_units_batch(
+    value, width, starts, length = jax.vmap(tokenize.emission_units)(
         x, n, score, off, full)
-    # the end marker splices into the packed words arithmetically — an
-    # N+1-th unit column would make every pack sort width-32769, which
-    # pads to the next power of two and costs 3.4x on v5e
     comp, total_bits, offs = bitpack.pack_bits_batch(
         value, width, cap_bytes(npos),
         end_marker=(spec.END_MARKER_VALUE, spec.END_MARKER_BITS))
@@ -187,39 +185,47 @@ def encode_batch_sync(x: jnp.ndarray, n: jnp.ndarray, *,
 
 
 def _sync_records_batch(total_bits, offs, width, starts, off, n, span):
-    from .pcand import _row_sort
-    from . import psync
+    """Parser-state records at the span-crossing parse steps.
 
+    Parse steps are the token heads and every NIBBLES_PER_STEP-th
+    extension nibble (decode2's lane contract). A step is <=
+    MAX_STEP_BITS bits, so it crosses at most one multiple of ``span``,
+    and every slot 1..nsync-1 receives exactly one record: the step that
+    starts before the boundary while the next step starts at or past it.
+    """
     b, npos = starts.shape
-    # parse steps (a token head; every NIBBLES_PER_STEP extension
-    # nibbles), parser-state records, and span-boundary crossing slots
-    # all come from one fused psync kernel pass (see its docstring; as
-    # XLA ops the two scans plus the elementwise chain cost ~8 ms at
-    # the bench shape). Steps are <= MAX_STEP_BITS bits, so each step
-    # crosses at most one boundary and every slot 1..nsync-1 receives
-    # exactly one record; crossing slots are monotone in position, so
-    # compacting them to dense slots is a single sort per key (XLA
-    # scatters serialize on TPU; sorts stream).
     end_bits = total_bits - spec.END_MARKER_BITS
     nslots = sync_slots(npos, span)
-    pb = max(16, (cap_bytes(npos) * 8 - 1).bit_length())
-    cb = max(1, nslots.bit_length())
-    assert pb + cb + 1 <= 31, (pb, cb)
-    ko, kl, kh = psync.sync_keys(
-        starts, width[:, :npos], off, offs[:, :npos], end_bits,
-        span=span, nibbles=NIBBLES_PER_STEP,
-        short_len=spec.MAX_SHORT_LENGTH,
-        ext_len=spec.MAX_EXTENDED_LENGTH, pb=pb, cmax=nslots)
-    rows = max(8, ((16 << 20) // (4 * npos)) & ~7)
-    s_o = _row_sort(ko, rows)
-    s_rl = _row_sort(kl, rows)
-    s_rh = _row_sort(kh, rows)
-    pmask = (1 << pb) - 1
-    bit_s = s_o & pmask
-    rec_s = ((s_rh & 0x1FFF) << 16) | (s_rl & 0xFFFF)
-    zero = jnp.zeros((b, 1), jnp.int32)
-    built_bit = jnp.concatenate([zero, bit_s[:, :nslots - 1]], axis=1)
-    built_rec = jnp.concatenate([zero, rec_s[:, :nslots - 1]], axis=1)
+    width = width[:, :npos]
+    o = offs[:, :npos]
+    i = jnp.broadcast_to(jnp.arange(npos, dtype=jnp.int32)[None, :],
+                         (b, npos))
+
+    okey = jax.lax.cummax(jnp.where(
+        starts, (i << 12) | jnp.minimum(off, spec.LONG_OFFSET_MAX), -1),
+        axis=1)
+    owner_i = okey >> 12
+    owner_off = okey & 0xFFF
+    t = i - owner_i - 1
+    is_nib = (~starts) & (width == 4)
+    is_step = starts | (is_nib & (t % NIBBLES_PER_STEP == 0))
+    opos = owner_i + spec.MAX_SHORT_LENGTH + spec.MAX_EXTENDED_LENGTH * t
+    rec = jnp.where(starts, i, opos | (1 << 17) | (owner_off << 18))
+
+    # start of the next parse step; past the last one, the end marker
+    nso = jax.lax.cummin(jnp.where(is_step, o, _BIG), axis=1, reverse=True)
+    next_o = jnp.minimum(
+        jnp.concatenate([nso[:, 1:], end_bits[:, None]], axis=1),
+        end_bits[:, None])
+    c = next_o // span
+    cross = is_step & (o // span < c)
+    rows = jnp.arange(b, dtype=jnp.int32)[:, None]
+    at = jnp.where(cross, c, nslots)
+    built_bit = jnp.zeros((b, nslots), jnp.int32).at[rows, at].set(
+        o, mode="drop")
+    built_rec = jnp.zeros((b, nslots), jnp.int32).at[rows, at].set(
+        rec, mode="drop")
+
     nsync = (end_bits + span - 1) // span
     slot = jnp.arange(nslots, dtype=jnp.int32)[None, :]
     sync_bit = jnp.where(slot < nsync[:, None], built_bit,

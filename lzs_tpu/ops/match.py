@@ -9,7 +9,7 @@ lzs-compression-simple.c:266-278):
   off[i]   = smallest d attaining the max (nearest-match tie-break)
   full[i]  = exact (uncapped) run length at (i, off[i])
 
-The key insight making this TPU-friendly: runlen(i, d) — the number of
+The key insight making this parallel: runlen(i, d) — the number of
 consecutive byte equalities x[i+k] == x[i+k-d] — equals
 (first mismatch position >= i in column d) - i, which is a *reverse
 cumulative min* along the position axis of per-cell mismatch positions.

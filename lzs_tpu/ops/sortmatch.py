@@ -24,12 +24,10 @@ Structure (one suffix-style sort, then one cheap packed sort per k):
      the nearest previous occurrence of the k-gram. A second
      single-operand sort of pos<<16|cand restores position order.
 
-  Single-operand UNSTABLE sorts are what the TPU sorts fastest
-  (comparator cost dominates lax.sort; measured ~1.6 ms per (256, 32768)
-  int32 unstable sort vs ~7.2 ms stable and ~10 ms for 4-key sorts), so
-  deriving the 11 per-k orders from packed keys costs a fraction of
-  sorting per-k gram keys directly. Every key packs the position, making
-  the order unique, so stability is never needed.
+  Single-operand sorts of packed int32 keys are the cheapest sorts XLA
+  offers, so deriving the 11 per-k orders from packed keys costs a
+  fraction of sorting per-k gram keys directly. Every key packs the
+  position, making the order unique, so stability is never needed.
 
 Correctness notes:
   * The nearest previous occurrence is global; if it is farther than
@@ -45,8 +43,8 @@ Extension beyond the capped score (the COMPRESS_EXTENDED re-measure loop,
 lzs-compression.c:417-431): run ends pin most capped heads arithmetically
 for ANY offset (see best_matches — runlen decrements by one along a
 diagonal, and only stolen or data-end runs stay unknown); the remaining
-heads fetch one 48-byte span per side via an MXU chunk gather and count
-leading equal bytes elementwise; runs past the span close with one
+heads fetch one 48-byte span per side with a gather and count leading
+equal bytes elementwise; runs past the span close with one
 diagonal-run column per distinct offset (reverse cumulative min).
 """
 
@@ -59,7 +57,6 @@ import jax.numpy as jnp
 
 from .. import spec
 
-_DIAG = 16                             # diagonals with exact run tables
 _BIG = 0x3FFFFFFF    # plain int: jnp scalars become captured jaxpr consts
 
 
@@ -108,8 +105,7 @@ def _rank_lcp(words: list[jnp.ndarray], cap: int) -> jnp.ndarray:
 def candidates(x: jnp.ndarray, n: jnp.ndarray, *,
                window: int = spec.WINDOW_SIZE,
                cap: int = spec.SEARCH_MATCH_MAX):
-    """Per-position greedy (score, off) for one block (the oracle form;
-    the TPU fast path is candidates_batch).
+    """Per-position greedy (score, off) for one block.
 
     x: int32[N] byte values (zeros past ``n``); N <= 32768.
     Returns (score, off): int32[N] each (off = 0 where no match).
@@ -123,8 +119,7 @@ def candidates(x: jnp.ndarray, n: jnp.ndarray, *,
 
     words = _gram_words(x, nwords)
     # is_stable=False everywhere in this module: every key includes the
-    # position, so the total order is unique and stability is pure cost
-    # (measured 7.2 ms stable vs 1.6 ms unstable per (256, 32768) sort).
+    # position, so the total order is unique and stability is pure cost.
     out = jax.lax.sort(tuple(words) + (i,), dimension=0,
                        num_keys=nwords + 1, is_stable=False)
     swords, p = list(out[:nwords]), out[-1]
@@ -150,65 +145,6 @@ def candidates(x: jnp.ndarray, n: jnp.ndarray, *,
     return score, off
 
 
-# Whole-block batch candidates (the fast path)
-# ---------------------------------------------------------------------------
-
-
-def candidates_batch(x: jnp.ndarray, n: jnp.ndarray, *,
-                     window: int = spec.WINDOW_SIZE,
-                     cap: int = spec.SEARCH_MATCH_MAX,
-                     pallas_glue: bool | None = None):
-    """Per-position greedy (score, off) for a batch of blocks.
-
-    Same result as ``jax.vmap(candidates)``, restructured for the TPU:
-    the initial 12-byte-gram sort demotes the position to a payload
-    operand (plcp and the per-k regroup do not depend on the order of
-    equal grams), every lax.sort call is split into <= 16 MB row groups
-    (pcand._row_sort), and the per-k glue between the sorts runs as
-    Pallas VMEM kernels (pcand) instead of XLA cummax/elementwise ops.
-
-    x: int32[B, N] byte values (zeros past ``n``).
-    Returns (score, off): int32[B, N] each.
-    """
-    b, npos = x.shape
-    assert spec.MIN_MATCH <= cap <= 16
-    x = x.astype(jnp.int32)
-    if pallas_glue is None:
-        pallas_glue = jax.default_backend() == "tpu"
-    if not pallas_glue or npos % 512 != 0:
-        return jax.vmap(lambda a, m: candidates(
-            a, m, window=window, cap=cap))(x, n)
-
-    from . import pcand
-
-    nwords = -(-cap // 4)
-    words = _gram_words(x, nwords)
-    pos = jnp.broadcast_to(jnp.arange(npos, dtype=jnp.int32)[None, :],
-                           (b, npos))
-    rows_per_call = max(8, (16 << 20) // (4 * npos))
-    out = pcand._row_sort(tuple(words) + (pos,), rows_per_call,
-                          num_keys=nwords)
-    swords, p = list(out[:nwords]), out[-1]
-    plcp = _rank_lcp_rows(swords, cap)
-    return pcand.perk_candidates(plcp, p, n, kmin=spec.MIN_MATCH,
-                                 kmax=cap, window=window)
-
-
-def _rank_lcp_rows(words: list[jnp.ndarray], cap: int) -> jnp.ndarray:
-    """Row-wise _rank_lcp: words are (R, W) sorted gram-word columns."""
-    rows, w = words[0].shape
-    lcp = jnp.full((rows, w), cap, jnp.int32)
-    consumed = jnp.zeros((rows, w), jnp.bool_)
-    for wi, col in enumerate(words):
-        prev = jnp.concatenate([~col[:, :1], col[:, :-1]], axis=1)
-        z = col ^ prev
-        here = 4 * wi + (jax.lax.clz(z) >> 3).astype(jnp.int32)
-        differs = z != 0
-        lcp = jnp.where(differs & ~consumed, jnp.minimum(here, cap), lcp)
-        consumed = consumed | differs
-    return lcp
-
-
 _PROBE_CAP = 1024     # compacted probe lanes per wave (structured data
                       # produces ~700 steal heads per 32K block; one wave
                       # must usually cover them all)
@@ -223,31 +159,27 @@ def _probe_extension(x: jnp.ndarray, n: jnp.ndarray, base: jnp.ndarray,
     x[a + t] == x[a + t - doff] (t >= 0) at a = base, for active lanes.
 
     Active lanes are first *compacted* (one cheap sort) into waves of
-    _PROBE_CAP lanes. Tier 1 fetches a 64-byte span from each side with
-    ops.vgather.mxu_span_gather (one-hot chunk matmuls + masked rolls —
-    measured probe extensions are tiny, p99.9 = 25 bytes on the bench
-    corpus, but XLA's serialized gather made the old per-word fetch loop
-    the single largest cost of best_matches) and counts leading equal
-    bytes elementwise. Tier 2: survivors (runs past 64 bytes) are
-    grouped by *distinct offset* and each group is closed with one
-    elementwise diagonal-run column (reverse cumulative min) — linear
-    total work even for very long periodic matches.
+    _PROBE_CAP lanes. Tier 1 gathers a 48-byte span from each side
+    (probe extensions are short: p99.9 = 25 bytes on the bench corpus)
+    and counts leading equal bytes elementwise. Tier 2: survivors (runs
+    past the span) are grouped by *distinct offset* and each group is
+    closed with one elementwise diagonal-run column (reverse cumulative
+    min) — linear total work even for very long periodic matches.
     """
-    from .vgather import mxu_span_gather
-
     npos = x.shape[0]
     cap = min(_PROBE_CAP, npos)
-    nwords = (npos // 4 + _T1_WORDS + 2 + 127) & ~127
+    nwords = npos // 4 + _T1_WORDS + 2
     xe = jnp.concatenate(
         [x, jnp.zeros(nwords * 4 - npos, jnp.int32)]).reshape(nwords, 4)
     wtab = ((xe[:, 0] << 24) | (xe[:, 1] << 16) | (xe[:, 2] << 8)
             | xe[:, 3])
     j = jnp.arange(npos, dtype=jnp.int32)
+    span = jnp.arange(_T1_WORDS + 1, dtype=jnp.int32)
 
     def aligned_span(start):
         """(cap,) byte positions -> (cap, _T1_WORDS) big-endian words of
         x[start ..], bit-aligned to the byte."""
-        w = mxu_span_gather(wtab, start >> 2, _T1_WORDS + 1)
+        w = wtab[(start >> 2)[:, None] + span]
         sh = ((start & 3) * 8).astype(jnp.uint32)[:, None]
         hi = w[:, :-1].astype(jnp.uint32)
         lo = w[:, 1:].astype(jnp.uint32)
@@ -312,14 +244,9 @@ def small_extension(x: jnp.ndarray, n: jnp.ndarray, score: jnp.ndarray,
     room left in the data) — there full holds the lower bound ``cap``
     and best_matches resolves the rest via run ends / probes.
 
-    An earlier form resolved offsets <= 16 here with 16 diagonal-run
-    columns; the reverse cummin over that (16, N) stack cost ~20 ms of
-    the 8 MiB bench, while the run-end argument in best_matches is
-    offset-agnostic and covers the same positions arithmetically (small
-    offsets cannot be stolen by smaller ones nearly as often — an RLE
-    d=1 run can never be stolen at all, steals need a strictly nearer
-    offset). The diagonal tables are gone; _diag_runs remains for the
-    probe tier-2 columns' semantics documentation and tests.
+    The run-end argument in best_matches is offset-agnostic and
+    resolves these positions arithmetically (an RLE d=1 run can never
+    be stolen at all; steals need a strictly nearer offset).
     """
     del x
     npos = score.shape[0]
@@ -355,147 +282,12 @@ def best_matches_batch(x: jnp.ndarray, n: jnp.ndarray, *,
                        window: int = spec.WINDOW_SIZE,
                        cap: int = spec.SEARCH_MATCH_MAX):
     """Batched best_matches: int32[B, N] x, int32[B] n -> (score, off,
-    full) int32[B, N] each. Candidates come from the split-sort path
-    (candidates_batch); the run-end/probe extension is batch-level
-    (_extend_batch) with Pallas big-table gathers for the probe spans."""
+    full) int32[B, N] each."""
     x = x.astype(jnp.int32)
-    score, off = candidates_batch(x, n, window=window, cap=cap)
-    if jax.default_backend() == "tpu":
-        full = _extend_batch(x, n, score, off, cap)
-    else:
-        full = jax.vmap(functools.partial(_extend, cap=cap))(
-            x, n, score, off)
+    score, off = jax.vmap(functools.partial(
+        candidates, window=window, cap=cap))(x, n)
+    full = jax.vmap(functools.partial(_extend, cap=cap))(x, n, score, off)
     return score, off, full
-
-
-def _extend_batch(x, n, score, off, cap):
-    """Batched _extend: run-end pinning + Pallas-gather probes.
-
-    Same result as ``jax.vmap(_extend)``; see _extend for the run-end
-    argument. The two full-width scans (reverse cummin over break info,
-    forward cummax over resolved heads) run as pext roll-scan kernels —
-    as XLA cummin/cummax they cost ~2-3 ms each at the bench shape. The
-    probe tier fetches its compare spans with pgather.gather_big
-    instead of MXU one-hot contractions.
-    """
-    from . import pext
-
-    packed = pext.ext_breaks(score, off, n, cap)
-    need_probe = (packed & 1) != 0
-    ext_res = packed >> 3
-    ext_p = _probe_batch(x, n, off, need_probe, cap)
-    ext_h = jnp.where(need_probe, ext_p, ext_res)
-    return pext.ext_fold(packed, ext_h, score, cap)
-
-
-def _probe_batch(x, n, doff, active, cap):
-    """Exact run extension at probe positions, batched.
-
-    For active positions i: length of the maximal run of
-    x[i + cap + t] == x[i + cap + t - doff] (t >= 0). Waves of
-    _PROBE_CAP compacted lanes; tier-1 compares 52-byte spans fetched
-    with pgather.gather_big; runs past the span close per distinct
-    offset with diagonal-run columns (vmapped while loop, as _probe_
-    extension). Results return to their positions by probe rank — a
-    cumsum plus one small-table gather, no scatter.
-    """
-    from .pgather import gather_big
-
-    b, npos = x.shape
-    p = min(_PROBE_CAP, npos)
-    nwords = (npos // 4 + _T1_WORDS + 2 + 127) & ~127
-    xe = jnp.concatenate(
-        [x, jnp.zeros((b, nwords * 4 - npos), jnp.int32)], axis=1
-    ).reshape(b, nwords, 4)
-    words = ((xe[..., 0] << 24) | (xe[..., 1] << 16)
-             | (xe[..., 2] << 8) | xe[..., 3])
-    i = jnp.broadcast_to(jnp.arange(npos, dtype=jnp.int32)[None, :],
-                         (b, npos))
-    nq = n[:, None]
-    nt = _T1_WORDS + 1
-
-    from .pcand import _row_sort
-    rows = max(8, ((16 << 20) // (4 * npos)) & ~7)
-
-    def aligned(w14, a):
-        """w14 (B, P, nt) raw words; a byte positions -> (B, P, 13)
-        byte-aligned big-endian words of x[a..]."""
-        sh = ((a & 3) * 8).astype(jnp.uint32)[:, :, None]
-        hi = w14[:, :, :-1].astype(jnp.uint32)
-        lo = w14[:, :, 1:].astype(jnp.uint32)
-        return jnp.where(sh == 0, hi, (hi << sh) | (lo >> (32 - sh)))
-
-    def wave(state):
-        remaining, ln = state
-        packed = jnp.where(remaining,
-                           (i << 11) | jnp.minimum(doff, 0x7FF), _BIG)
-        srt = _row_sort(packed, rows)[:, :p]
-        lanes = srt < _BIG
-        sidx = jnp.where(lanes, srt >> 11, 0)
-        cdoff = jnp.maximum(srt & 0x7FF, 1)
-        cbase = sidx + cap
-        a = jnp.clip(cbase, 0, npos - 1)
-        bpos = a - jnp.minimum(cdoff, a)
-
-        # one fused span fetch for both sides (2 * nt words per lane)
-        tt = jnp.arange(nt, dtype=jnp.int32)[None, None, :]
-        idx = jnp.concatenate(
-            [(a[:, :, None] >> 2) + tt, (bpos[:, :, None] >> 2) + tt],
-            axis=2).reshape(b, p * 2 * nt)
-        got = gather_big(words, idx).reshape(b, p, 2 * nt)
-        aw = aligned(got[:, :, :nt], a)
-        bw = aligned(got[:, :, nt:], bpos)
-
-        xor = (aw ^ bw).astype(jnp.uint32)
-        lew = jnp.where(xor == 0, 32, jax.lax.clz(xor)).astype(
-            jnp.int32) >> 3
-        opn = jnp.concatenate(
-            [jnp.ones((b, p, 1), jnp.bool_),
-             jax.lax.cummin(lew, axis=2)[:, :, :-1] >= 4], axis=2)
-        ext = jnp.sum(jnp.where(opn, lew, 0), axis=2)
-        full_span = ext >= 4 * _T1_WORDS
-        ext = jnp.minimum(ext, jnp.maximum(nq - cbase, 0))
-        cln = jnp.where(lanes, ext, 0)
-        act = lanes & full_span & (cbase + ext < nq)
-
-        # tier 2: close long runs by distinct offset. One BATCH-GLOBAL
-        # offset per round (a scalar shift keeps the roll two slices and
-        # the run column one pext roll-scan; the old per-block vmapped
-        # form paid ~6.5 ms for vmapped dynamic rolls + XLA cummin +
-        # per-lane gathers even when a single round sufficed)
-        from . import pext
-
-        def t2_body(state2):
-            a2, c2 = state2
-            d0 = jnp.min(jnp.where(a2, cdoff, _BIG))
-            prev = jnp.roll(x, d0, axis=1)
-            eq = (x == prev) & (i >= d0) & (i < nq)
-            mm = jnp.where(eq, _BIG, i)
-            rm = pext.rcummin_rows(mm)
-            col = jnp.maximum(jnp.minimum(rm, nq) - i, 0)
-            vals = gather_big(col, a)
-            mine = a2 & (cdoff == d0)
-            return a2 & ~mine, jnp.where(mine, vals, c2)
-
-        _, cln = jax.lax.while_loop(lambda s: jnp.any(s[0]), t2_body,
-                                    (act, cln))
-
-        # deliver by probe rank: active position r-th in index order
-        # reads wave slot r (the compaction is index-ordered; the rank
-        # is a pext roll-scan — XLA's cumsum costs ~2 ms at this shape)
-        from . import pext
-
-        rank = pext.rank_mask(remaining)
-        vals = gather_big(cln, jnp.clip(rank, 0, p - 1))
-        take = remaining & (rank < p)
-        ln = jnp.where(take, vals, ln)
-        remaining = remaining & ~take
-        return remaining, ln
-
-    _, length = jax.lax.while_loop(
-        lambda s: jnp.any(s[0]), wave,
-        (active, jnp.zeros((b, npos), jnp.int32)))
-    return length
 
 
 def _extend(x, n, score, off, cap):
@@ -527,7 +319,7 @@ def _extend(x, n, score, off, cap):
                       (i << 13) | (is_cap_score.astype(jnp.int32) << 12)
                       | jnp.clip(off, 0, 0x7FF),
                       _BIG)
-    rcm = jnp.flip(jax.lax.cummin(jnp.flip(binfo)))     # next break >= j
+    rcm = jax.lax.cummin(binfo, reverse=True)           # next break >= j
     nxt1 = jnp.concatenate([rcm[1:], jnp.full(1, _BIG, jnp.int32)])
     has_brk = nxt1 < _BIG
     e = jnp.where(has_brk, nxt1 >> 13, npos)

@@ -7,7 +7,7 @@ logarithmic stages instead of a position-by-position walk:
 
   1. In-tile pointer doubling: within tiles of ``_TILE`` positions, jump
      tables A_t[i] = position after 2^t token hops from i (frozen at the
-     first position past the tile). log2(_TILE) MXU-gather rounds.
+     first position past the tile). log2(_TILE) gather rounds.
   2. A tile-granular ``lax.scan`` threads the single sequential
      dependency: the entry position of tile t+1 is the exit of the chain
      from tile t's entry (one tiny gather per step).
@@ -27,8 +27,6 @@ of start indices gives each token's end, hence its length.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
@@ -38,68 +36,12 @@ _TILE = 128
 _BIG = 0x3FFFFFFF    # plain int: jnp scalars become captured jaxpr consts
 
 
-def _tile_gather(tables: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Row-wise gather of 24-bit values: tables/idx int32[R, T].
-
-    For tiles this small a direct one-hot int8 contraction on the MXU is
-    cheaper than both XLA's serialized gather and the digit-split scheme
-    in ops.vgather (whose 16-way in-row select expands intermediates 16x).
-    Three byte planes: chain positions reach 2 * N, and the raw-stream
-    bit walk (ops.bitpar) runs at N ~ 300 K positions — two planes
-    silently corrupted any walk past 65535 (caught by
-    test_token_starts_wide_positions).
-    """
-    t = tables.shape[-1]
-    oh = (idx[..., None]
-          == jnp.arange(t, dtype=jnp.int32)).astype(jnp.int8)
-    planes = jnp.stack(
-        [tables & 0xFF, (tables >> 8) & 0xFF, (tables >> 16) & 0xFF],
-        axis=-1).astype(jnp.int8)
-    nb = oh.ndim - 2
-    out = jax.lax.dot_general(
-        oh, planes,
-        ((( oh.ndim - 1,), (planes.ndim - 2,)),
-         (tuple(range(nb)), tuple(range(nb)))),
-        preferred_element_type=jnp.int32)
-    return ((out[..., 0] & 0xFF) | ((out[..., 1] & 0xFF) << 8)
-            | ((out[..., 2] & 0xFF) << 16))
-
-
-@jax.custom_batching.custom_vmap
 def token_starts(step: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     """bool[N]: True at greedy token start positions.
 
     step: int32[N] bytes consumed by a token starting at each position
     (>= 1 wherever i < n).
-
-    On TPU this runs the Pallas VMEM walk (ops.pwalk: in-tile jump
-    tables + descent via Mosaic dynamic lane gathers — 0.09 ms vs 85 ms
-    for the XLA formulation at the 8 MiB bench batch). The custom_vmap
-    rule maps a vmapped call straight onto the batched kernel. Off-TPU
-    the XLA formulation below is used (XLA-CPU gathers are cheap).
     """
-    if jax.default_backend() == "tpu":
-        from . import pwalk
-
-        return pwalk.walk_starts(step[None], n[None])[0]
-    return _token_starts_xla(step, n)
-
-
-@token_starts.def_vmap
-def _token_starts_vmap(axis_size, in_batched, step, n):
-    step_b, n_b = in_batched
-    if not step_b:
-        step = jnp.broadcast_to(step, (axis_size,) + step.shape)
-    if not n_b:
-        n = jnp.broadcast_to(n, (axis_size,))
-    if jax.default_backend() == "tpu":
-        from . import pwalk
-
-        return pwalk.walk_starts(step, n), True
-    return jax.vmap(_token_starts_xla)(step, n), True
-
-
-def _token_starts_xla(step: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     npos = step.shape[0]
     pad = (-npos) % _TILE
     if pad:
@@ -114,20 +56,17 @@ def _token_starts_xla(step: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     a = (i + jnp.maximum(step, 1)).reshape(ntiles, _TILE)
     tables = [a]
     for _ in range(rounds):
-        g = _tile_gather(a, jnp.clip(a - base, 0, _TILE - 1))
+        g = jnp.take_along_axis(a, jnp.clip(a - base, 0, _TILE - 1), axis=1)
         a = jnp.where(a < base + _TILE, g, a)
         tables.append(a)
     exits = a                     # first chain position >= tile end
 
-    # 2. entry of each tile: thread the chain exit tile by tile. The
-    # per-step fetch is a one-hot multiply-reduce (in-scan XLA gathers
-    # serialize; a 256-wide masked sum is pure VPU work).
-    lane = jnp.arange(_TILE, dtype=jnp.int32)
-
+    # 2. entry of each tile: thread the chain exit tile by tile (the one
+    # sequential dependency: ntiles steps of one scalar fetch each)
     def entry_step(c, inp):
         ex, b0 = inp
         inside = (c >= b0) & (c < b0 + _TILE)
-        nxt = jnp.sum(jnp.where(lane == c - b0, ex, 0))
+        nxt = ex[jnp.clip(c - b0, 0, _TILE - 1)]
         return jnp.where(inside, nxt, c), c
 
     # step[0] * 0: the carry must inherit the varying manual axes of the
@@ -139,7 +78,8 @@ def _token_starts_xla(step: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     pos = jnp.broadcast_to(entries[:, None], (ntiles, _TILE))
     it = i.reshape(ntiles, _TILE)
     for t in range(rounds - 1, -1, -1):
-        nxt = _tile_gather(tables[t], jnp.clip(pos - base, 0, _TILE - 1))
+        nxt = jnp.take_along_axis(tables[t],
+                                  jnp.clip(pos - base, 0, _TILE - 1), axis=1)
         ok = (pos >= base) & (pos < base + _TILE) & (nxt <= it)
         pos = jnp.where(ok, nxt, pos)
     starts = (pos == it).reshape(-1)[:npos]
@@ -148,26 +88,24 @@ def _token_starts_xla(step: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
 
 @jax.jit
 def emission_units(x: jnp.ndarray, n: jnp.ndarray, score: jnp.ndarray,
-                   off: jnp.ndarray, full: jnp.ndarray,
-                   starts: jnp.ndarray | None = None):
+                   off: jnp.ndarray, full: jnp.ndarray):
     """Per-position emission units for the bit packer.
 
     Returns (value, width, starts, length):
       value, width: int32[N]; width 0 means the position emits nothing.
       starts: bool[N] token-start flags; length: int32[N] token length at
-      starts (1 for literals). Pass precomputed ``starts`` to skip the walk.
+      starts (1 for literals).
     """
     npos = x.shape[0]
     i = jnp.arange(npos, dtype=jnp.int32)
     is_match = (score >= spec.MIN_MATCH) & (i < n)
     length = jnp.where(is_match, full, 1)
-    if starts is None:
-        starts = token_starts(jnp.where(i < n, length, 1), n)
+    starts = token_starts(jnp.where(i < n, length, 1), n)
 
     # --- head units at token starts ---
-    # Length code by arithmetic, not table gather (XLA gathers serialize
-    # on TPU): initial 2,3,4 -> 0b00,0b01,0b10 (2 bits); 5,6,7 ->
-    # 0b1100..0b1110 and 8 -> 0b1111 (4 bits). lzs-compression.c:91-124.
+    # Length code by arithmetic: initial 2,3,4 -> 0b00,0b01,0b10 (2
+    # bits); 5,6,7 -> 0b1100..0b1110 and 8 -> 0b1111 (4 bits).
+    # lzs-compression.c:91-124.
     initial = jnp.clip(jnp.minimum(length, spec.MAX_SHORT_LENGTH), 2, 8)
     short_code = initial < 5
     lv = jnp.where(short_code, initial - 2, initial + 7)
@@ -187,7 +125,7 @@ def emission_units(x: jnp.ndarray, n: jnp.ndarray, score: jnp.ndarray,
     owner = ck >> 1
     own_match = (ck & 1) == 1
     nstart = jnp.where(starts, i, _BIG)
-    rc = jnp.flip(jax.lax.cummin(jnp.flip(nstart)))     # next start >= j
+    rc = jax.lax.cummin(nstart, reverse=True)           # next start >= j
     own_len = jnp.minimum(rc, n) - owner                # token length at j
 
     # --- extension nibbles attributed to in-match positions ---
@@ -197,60 +135,6 @@ def emission_units(x: jnp.ndarray, n: jnp.ndarray, score: jnp.ndarray,
     is_nib = ((~starts) & (owner >= 0) & own_match
               & (own_len >= spec.MAX_SHORT_LENGTH)
               & (t < q + 1) & (i < n))
-    nib_v = jnp.where(t < q, spec.MAX_EXTENDED_LENGTH,
-                      rest - q * spec.MAX_EXTENDED_LENGTH)
-
-    value = jnp.where(starts, head_v, jnp.where(is_nib, nib_v, 0))
-    width = jnp.where(starts, head_w, jnp.where(is_nib, 4, 0))
-    return value, width, starts, length
-
-
-def emission_units_batch(x: jnp.ndarray, n: jnp.ndarray,
-                         score: jnp.ndarray, off: jnp.ndarray,
-                         full: jnp.ndarray):
-    """Batched emission_units over (B, N) arrays.
-
-    Same results as ``jax.vmap(emission_units)``; the two ownership
-    scans run as pext roll-scan kernels instead of vmapped XLA
-    cummax/cummin (which cost ~2-3 ms at the (256, 32768) bench shape).
-    """
-    from . import pext
-
-    b, npos = x.shape
-    i = jnp.broadcast_to(jnp.arange(npos, dtype=jnp.int32)[None, :],
-                         (b, npos))
-    nq = n[:, None]
-    is_match = (score >= spec.MIN_MATCH) & (i < nq)
-    length = jnp.where(is_match, full, 1)
-    starts = jax.vmap(token_starts)(jnp.where(i < nq, length, 1), n)
-
-    initial = jnp.clip(jnp.minimum(length, spec.MAX_SHORT_LENGTH), 2, 8)
-    short_code = initial < 5
-    lv = jnp.where(short_code, initial - 2, initial + 7)
-    lw = jnp.where(short_code, 2, 4)
-    short = off <= spec.SHORT_OFFSET_MAX
-    off_field = jnp.where(short, (1 << spec.SHORT_OFFSET_BITS) | off, off)
-    off_width = jnp.where(short, 1 + spec.SHORT_OFFSET_BITS,
-                          1 + spec.LONG_OFFSET_BITS)
-    match_v = ((((jnp.int32(1) << off_width) | off_field) << lw) | lv)
-    match_w = 1 + off_width + lw
-    head_v = jnp.where(is_match, match_v, x.astype(jnp.int32))
-    head_w = jnp.where(is_match, match_w, 9)
-
-    key = jnp.where(starts, (i << 1) | is_match.astype(jnp.int32), -1)
-    ck = pext.cummax_rows(key)
-    owner = ck >> 1
-    own_match = (ck & 1) == 1
-    nstart = jnp.where(starts, i, _BIG)
-    rc = pext.rcummin_rows(nstart)                   # next start >= j
-    own_len = jnp.minimum(rc, nq) - owner            # token length at j
-
-    t = i - owner - 1
-    rest = own_len - spec.MAX_SHORT_LENGTH
-    q = jnp.maximum(rest, 0) // spec.MAX_EXTENDED_LENGTH
-    is_nib = ((~starts) & (owner >= 0) & own_match
-              & (own_len >= spec.MAX_SHORT_LENGTH)
-              & (t < q + 1) & (i < nq))
     nib_v = jnp.where(t < q, spec.MAX_EXTENDED_LENGTH,
                       rest - q * spec.MAX_EXTENDED_LENGTH)
 

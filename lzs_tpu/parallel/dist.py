@@ -1,7 +1,7 @@
-"""Pod-slice scaling: block data parallelism over a device mesh.
+"""Multi-device scaling: block data parallelism over a device mesh.
 
 The reference is single-threaded; this module is the distributed-systems
-layer the TPU framework adds (SURVEY.md section 2.4). Design:
+layer this codec adds (SURVEY.md section 2.4). Design:
 
   * independent blocks are sharded over a 1-D mesh axis ("blocks")
   * each device runs the full encode/decode pipeline on its local shard
@@ -9,8 +9,8 @@ layer the TPU framework adds (SURVEY.md section 2.4). Design:
     exchanged with an ordered all_gather so the host reassembles streams
     in original block order (BASELINE.json configs 3 and 5)
 
-Collectives ride XLA (ICI within a slice, DCN across hosts via
-jax.distributed); nothing here talks to transport directly. For multi-host
+Collectives ride XLA (NCCL between the GPUs of a host, and across hosts
+via jax.distributed); nothing here talks to transport directly. For multi-host
 runs call jax.distributed.initialize() before building the mesh — the
 sharded callables below are host-agnostic.
 """
@@ -68,7 +68,7 @@ def encode_sharded(mesh: Mesh, block: int, chunk: int = 4096,
 
     The collective is explicit: each device encodes its block shard with
     the local pipeline, then ``jax.lax.all_gather(..., tiled=True)`` inside
-    ``shard_map`` concatenates shards in mesh order over ICI/DCN — the
+    ``shard_map`` concatenates shards in mesh order — the
     block order of the output is pinned to the input order by
     construction, not left to GSPMD sharding propagation.
 

@@ -3,7 +3,7 @@
 This is the framework's ground truth: a clear, vectorized re-statement of the
 deterministic encoder policy and the decoder semantics pinned by the reference
 implementation (see lzs_tpu.spec for citations). Every accelerated path
-(Pallas/XLA kernels, the C++ native runtime) is tested against this model,
+(the XLA device path, the C++ native runtime) is tested against this model,
 and this model is tested against the reference's golden vectors and
 closed-form size formulas.
 

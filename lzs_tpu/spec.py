@@ -113,7 +113,7 @@ class LzsConfig:
 
     The defaults are the standard LZS profile. The generalized coder layer
     (lzs_tpu.coders) covers the reference python framework's pluggable
-    variants; the TPU kernels implement this standard profile.
+    variants; the device kernels implement this standard profile.
     """
     window: int = WINDOW_SIZE
     short_offset_bits: int = SHORT_OFFSET_BITS

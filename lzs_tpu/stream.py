@@ -1,6 +1,6 @@
 """Streaming / incremental codec API with carried 2 KiB window state.
 
-The TPU-native analogue of the reference's incremental state machines
+The analogue of the reference's incremental state machines
 (lzs_compress_incremental, lzs-compression.c:553-823;
 lzs_decompress_incremental, lzs-decompression.c:459-743): complete codec
 state lives in a plain serializable object — window bytes, bit-queue
@@ -482,8 +482,7 @@ def compress_stream(data: bytes, feed_size: int = 1 << 16,
     """Convenience: run a stream compressor over fixed-size feeds.
 
     ``engine="auto"`` uses the native C++ streaming encoder (byte-
-    identical output, measured ~3-6x the reference CLI's encode rate)
-    and falls back to the pure-Python ``StreamCompressor``;
+    identical output) and falls back to the pure-Python ``StreamCompressor``;
     ``engine="python"`` forces the Python class (the checkpointable
     pytree-state surface the parity tests drive).
     """

@@ -1,13 +1,15 @@
 """ctypes binding to the native C++ runtime (native/lzs_native.cpp).
 
-Builds the shared library on first use (cached under native/build/). The
-native runtime provides the host-side sequential stages of the hybrid TPU
-pipeline and standalone one-shot/streaming codecs.
+Builds the shared library from native/Makefile on first use (into
+native/build/, which git ignores). The native runtime provides the
+host-side sequential stages of the hybrid pipeline and standalone
+one-shot/streaming codecs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import pathlib
 import subprocess
 import threading
@@ -31,9 +33,20 @@ FINISHED = 4
 END_MARKER = 8
 
 
+def _stale() -> bool:
+    return (not _SO.exists()
+            or _SO.stat().st_mtime < (_SRC / "lzs_native.cpp").stat().st_mtime)
+
+
 def _build() -> None:
-    subprocess.run(["make", "-s", "-C", str(_SRC)], check=True,
-                   capture_output=True, text=True)
+    """Run the Makefile under a file lock, so that concurrent processes
+    (test workers) never load a half-written library."""
+    _SO.parent.mkdir(parents=True, exist_ok=True)
+    with open(_SO.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            subprocess.run(["make", "-s", "-C", str(_SRC)], check=True,
+                           capture_output=True, text=True)
 
 
 def load() -> ctypes.CDLL:
@@ -42,9 +55,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        src = _SRC / "lzs_native.cpp"
-        if (not _SO.exists()
-                or _SO.stat().st_mtime < src.stat().st_mtime):
+        if _stale():
             _build()
         lib = ctypes.CDLL(str(_SO))
         u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -1,8 +1,8 @@
 // lzs_tpu native runtime: clean-room C++17 LZS codec (ANSI X3.241-1994).
 //
-// This is the host-side runtime of the TPU framework: one-shot and
+// This is the host-side runtime of the codec: one-shot and
 // streaming encode/decode, plus the sequential assembly stage of the
-// hybrid TPU pipeline (greedy walk + extension + bit packing over
+// hybrid device pipeline (greedy walk + extension + bit packing over
 // device-computed match tables). Implemented from the wire-format
 // specification in lzs_tpu/spec.py; the deterministic encoder policy is
 // the one verified byte-identical across the reference implementations
@@ -443,8 +443,7 @@ int lzs_nat_dec_feed(LzsNatDecoder* d, const uint8_t* in, size_t n,
   int status = 0;
   // Snapshot the pre-feed history once; during the feed the window is
   // (h0 tail + out[0..o)), so copies read straight out of the output
-  // buffer in bulk instead of a per-byte vector push (the old per-byte
-  // push_hist measured ~0.65x the reference CLI's decode rate).
+  // buffer in bulk instead of a per-byte vector push.
   const std::vector<uint8_t> h0(d->hist);
   const size_t hs = h0.size();
   auto copy = [&](int count) -> int {  // returns bytes copied

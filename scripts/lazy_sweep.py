@@ -2,9 +2,11 @@
 
 Measures compressed sizes of the greedy policy (byte-identical to the
 reference C encoder, pinned by tests) and the lazy 1-token-lookahead
-policy on a standard-ish corpus: the reference implementation's own
-source files (Calgary/Silesia are unreachable offline) plus the frozen
-bench corpus. Prints a size table and a JSON summary line.
+policy on the frozen bench corpus plus any files named on the command
+line (LAZY_SWEEP.json lists the reference implementation's own C and
+Python sources). Prints a size table and a JSON summary line.
+
+Usage: python scripts/lazy_sweep.py [FILE ...]
 """
 from __future__ import annotations
 
@@ -15,37 +17,25 @@ import sys
 import numpy as np
 
 
-def corpora():
-    ref = pathlib.Path("/root/reference")
-    files = [
-        ref / "c" / "src" / "liblzs" / "lzs-compression.c",
-        ref / "c" / "src" / "liblzs" / "lzs-decompression.c",
-        ref / "c" / "src" / "liblzs" / "lzs-compression-simple.c",
-        ref / "python" / "lzs.py",
-    ]
-    out = []
-    for f in files:
-        if f.exists():
-            out.append((f.name, f.read_bytes()))
-    sys.path.insert(0, ".")
+def corpora(files):
+    out = [(f.name, f.read_bytes()) for f in map(pathlib.Path, files)]
     from bench import make_corpus
     out.append(("bench_corpus_1MiB", make_corpus(1 << 20)))
     return out
 
 
 def main() -> None:
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/lzs_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
 
-    sys.path.insert(0, ".")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    from lzs_tpu.utils import compile_cache
+    compile_cache.enable()
     from lzs_tpu.blocks import pad_blocks
     from lzs_tpu.ops import encode as enc_ops
 
     block = 1 << 15
     rows = []
-    for name, data in corpora():
+    for name, data in corpora(sys.argv[1:]):
         x, lens = pad_blocks(data, block)
         xj, lj = jnp.asarray(x), jnp.asarray(lens)
         sizes = {}

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from lzs_tpu import coders, reference
-from tests.test_stream import mixed_data
+from test_stream import mixed_data
 
 DATA = mixed_data(9, 8000)
 
@@ -20,7 +20,7 @@ def test_standard_codec_wire_compatible():
 
 
 def test_standard_codec_golden_vector():
-    from tests.golden import GOLDEN_COMPRESSED, GOLDEN_PLAINTEXT
+    from golden import GOLDEN_COMPRESSED, GOLDEN_PLAINTEXT
     codec = coders.STANDARD_CODEC
     assert codec.decompress_bytes(GOLDEN_COMPRESSED) == GOLDEN_PLAINTEXT
 

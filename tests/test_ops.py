@@ -243,8 +243,8 @@ def test_bitpar_matches_scan_engine():
     """The parallel per-bit decoder (ops.bitpar) must agree with the
     bit-serial scan decoder (the executable-semantics oracle) on fuzzed
     streams — including truncations and concatenated streams — at a
-    batch size >= 32 (the size where jax.lax.associative_scan miscompiled
-    on TPU; the hand-rolled blocked scan is pinned here on every
+    batch size >= 32 (the size where jax.lax.associative_scan once
+    miscompiled; the hand-rolled blocked scan is pinned here on every
     backend)."""
     rng = np.random.default_rng(7)
     datas = []

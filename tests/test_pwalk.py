@@ -1,16 +1,14 @@
-"""Parity tests for the Pallas token-walk kernel (ops.pwalk).
+"""Parity tests for the pointer-doubling token walk (tokenize.token_starts).
 
-On CPU the kernels run in Pallas interpreter mode; the oracle is both a
-host-side sequential walk (the reference algorithm's chain,
-lzs-compression.c:301-448 consumes tokens one at a time) and the XLA
-pointer-doubling formulation.
+The oracle is a host-side sequential walk (the reference algorithm's
+chain, lzs-compression.c:301-448 consumes tokens one at a time).
 """
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from lzs_tpu.ops import pwalk, tokenize
+from lzs_tpu.ops import tokenize
 
 
 def host_walk(step, n):
@@ -31,21 +29,9 @@ def test_pwalk_matches_host_walk(seed, npos):
         bb, ii = rng.integers(0, b), rng.integers(0, npos)
         step[bb, ii] = rng.integers(1, npos // 2)
     n = np.array([npos, npos - 7, npos // 2 + 1, 1], np.int32)
-    got = np.asarray(pwalk.walk_starts(jnp.asarray(step), jnp.asarray(n)))
+    got = np.asarray(jax.vmap(tokenize.token_starts)(
+        jnp.asarray(step), jnp.asarray(n)))
     want = np.stack([host_walk(step[i], n[i]) for i in range(b)])
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pwalk_matches_xla_walk():
-    rng = np.random.default_rng(3)
-    b, npos = 3, 1536          # odd tile count: exercises whole-dim rows
-    step = rng.integers(1, 20, (b, npos)).astype(np.int32)
-    n = np.array([npos, 1000, 0], np.int32)
-    got = np.asarray(pwalk.walk_starts(jnp.asarray(step), jnp.asarray(n)))
-    want = np.stack([
-        np.asarray(tokenize._token_starts_xla(jnp.asarray(step[i]),
-                                              jnp.int32(n[i])))
-        for i in range(b)])
     np.testing.assert_array_equal(got, want)
 
 
@@ -66,8 +52,7 @@ def test_token_starts_vmap_dispatch():
 
 def test_token_starts_wide_positions():
     """Chain walks past position 65535 (the raw-stream bit walk runs at
-    ~300 K positions) — pins the 24-bit _tile_gather planes on the XLA
-    path and the Pallas walk alike."""
+    ~300 K positions)."""
     import numpy as np
     import jax
     import jax.numpy as jnp
